@@ -2,7 +2,7 @@
 //
 // The reference's ingest hot path is OpenCV's C++ imread inside its producer
 // thread (reference Frame.cpp:33, OdometryPipeline.cpp:216). This library is
-// the TPU framework's equivalent: a from-scratch PNG decoder (zlib inflate +
+// the framework's equivalent: a from-scratch PNG decoder (zlib inflate +
 // scanline unfiltering + grayscale conversion) exposed through a C ABI and
 // driven from Python via ctypes. ctypes releases the GIL for the call, so
 // the Python-side prefetch pool gets true multi-core decode.

@@ -1,4 +1,4 @@
-"""pmv_tpu — TPU-native monocular visual odometry framework.
+"""pmv_tpu — monocular visual odometry framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 JeanElsner/practical-multi-view (C++/OpenCV/Ceres KITTI monocular VO):

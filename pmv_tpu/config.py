@@ -8,7 +8,7 @@ files (README.md:21-45) are drop-in usable.
 
 :class:`VOConfig` carries the reference's keys (same names, same required-ness:
 ``map_scale`` is required by the reference even though its README omits it)
-plus the TPU-native knobs that replace hard-coded module constants
+plus the knobs that replace hard-coded module constants
 (LK window 32 / 4 levels, include/OpenCVLucasKanadeFM.h:9-10; grid 255x255,
 include/OdometryPipeline.h:31; RANSAC budgets, OpenCVEPnPSolver.cpp:35-36 and
 OpenCVFivePointTri.cpp:24).
@@ -62,7 +62,7 @@ class VOConfig:
     camera_calibration: str = ""
     poses: str = ""
 
-    # --- TPU-native knobs (replace reference hard-coded constants) ---
+    # --- knobs that replace reference hard-coded constants ---
     feature_capacity: int = 512    # N_max feature slots per frame
     map_capacity: int = 8192       # M_max landmark slots (ring buffer).
     # BA cost scales with this (landmark blocks are dense over the table);
@@ -101,7 +101,7 @@ class VOConfig:
     # the accepted relative pose and insert them into the map
     # (pipeline/steps.continuous_triangulate). Keeps count3DPoints dense so
     # the five-point bootstrap branch becomes cold-start-only (it otherwise
-    # re-fires every 6-18 frames and costs ~4.5 ms/event on chip). The
+    # re-fires every 6-18 frames). The
     # reference has no counterpart (landmarks are only born in the bootstrap
     # branch, OpenCVFivePointTri.cpp:36-53) — keep 0 for strict parity
     cont_tri_reproj_px: float = 2.0  # accept gate: reprojection error in
@@ -126,7 +126,7 @@ class VOConfig:
     # 300 keeps the pool dense and the essential/PnP geometry
     # well-conditioned without changing the PnP-vs-triangulation branch
     # point: on the 600-frame bench it removed every seed-dependent heading
-    # divergence (ATE 280-540 m -> 9-15 m; PERFORMANCE.md round 2)
+    # divergence (ATE 280-540 m -> 9-15 m)
     map_hist: int = 1              # 1 = snapshot landmark positions at BA
     # cadence on device so the video replay draws frame k's dots at their
     # THEN-current coordinates like the reference's drawMap
@@ -137,9 +137,10 @@ class VOConfig:
     # (map_live.png next to error_path) every N processed frames during the
     # run — the headless analogue of the reference's during-run cv::imshow
     # map (OdometryPipeline.cpp:423-425). 0 = off
-    lk_impl: str = "auto"          # LK tracker backend: tap (XLA tap-matrix
-    # matmuls) | pallas (fused VPU kernel, pmv_tpu.frontend.pallas_lk,
-    # 1.63x the tap path on chip) | auto (pallas on TPU, tap elsewhere)
+    lk_impl: str = "auto"          # LK tracker: tap (XLA tap-matrix
+    # matmuls) | pallas (Pallas Triton kernel, pmv_tpu.frontend.pallas_lk;
+    # GPU only) | auto (pallas on the GPU for lk_window <= 32, tap
+    # elsewhere) — pipeline.steps.resolve_lk_impl
     extractor: str = "good"        # good | shi_tomasi | fast
     essential_solver: str = "five_point"  # five_point (Nister, ref default) | eight_point
     matcher: str = "lk"            # lk | knn

@@ -15,7 +15,7 @@ vectorizable jax.numpy functions:
   (include/OdometryPipeline.h:89-108).
 
 Everything is shape-polymorphic over leading batch dimensions and preserves the
-input dtype (float32 on TPU; float64 available on CPU for parity tests).
+input dtype (float32 on the device; float64 available on CPU for parity tests).
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# TPU MXU matmuls default to bfloat16 inputs; geometry is tiny 3x3 algebra
-# where that costs ~0.3 px of reprojection error, so pin full precision.
+# An unpinned f32 matmul may run at reduced precision (TF32 on the GPU's
+# tensor cores, ~3 decimal digits); geometry is tiny 3x3 algebra where
+# that costs sub-pixel reprojection error, so pin full precision.
 _PREC = jax.lax.Precision.HIGHEST
 
 

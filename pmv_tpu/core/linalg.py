@@ -1,15 +1,13 @@
-"""Tiny-matrix linear algebra shaped for TPU.
+"""Tiny-matrix linear algebra without pivoting.
 
-XLA lowers ``jnp.linalg.solve`` to a row-pivoted LU; on TPU the per-column
-max-search and row swaps of a single small matrix serialize into a long
-scalar dependency chain — a lone (30, 30) solve costs ~0.5 ms on a v5e,
-about as much as the entire rest of a bundle-adjustment iteration
-(measured: scripts/tpu_stage_bench.py). Every small system in this
+XLA lowers ``jnp.linalg.solve`` to a row-pivoted LU, whose per-column
+max-search and row swaps of a single small matrix form a long scalar
+dependency chain. Every small system in this
 framework is damped/ridge-regularized SPD (LM normal equations, ridged
 Gram matrices, Tikhonov-damped Schur complements), so pivoting is
 unnecessary: pivot-free Gauss-Jordan elimination runs as n rank-1 updates
-of the augmented matrix — pure batched VPU work with no data-dependent
-control flow, ~10x faster at these shapes.
+of the augmented matrix — batched elementwise work with no
+data-dependent control flow.
 """
 
 from __future__ import annotations
@@ -17,6 +15,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+# The one-hot selections below must copy values exactly: no TF32 rounding
+# of an unpinned f32 contraction on the GPU.
+_PREC = lax.Precision.HIGHEST
 
 
 def gj_solve(A: jax.Array, B: jax.Array) -> jax.Array:
@@ -36,10 +38,10 @@ def gj_solve(A: jax.Array, B: jax.Array) -> jax.Array:
 
     def step(i, M):
         e = (jnp.arange(n) == i).astype(M.dtype)  # one-hot pivot selector
-        row = jnp.einsum("i,...ij->...j", e, M)  # pivot row (..., n+k)
-        piv = jnp.einsum("j,...j->...", e, row[..., :n])  # A[i, i]
+        row = jnp.einsum("i,...ij->...j", e, M, precision=_PREC)  # pivot row (..., n+k)
+        piv = jnp.einsum("j,...j->...", e, row[..., :n], precision=_PREC)  # A[i, i]
         row = row / piv[..., None]
-        col = jnp.einsum("j,...ij->...i", e, M[..., :, :n])  # column i
+        col = jnp.einsum("j,...ij->...i", e, M[..., :, :n], precision=_PREC)  # column i
         # Eliminate column i from every row (the pivot row zeroes itself),
         # then write back the normalized pivot row — no scatter needed.
         M = M - col[..., None] * row[..., None, :]
@@ -58,7 +60,7 @@ def gj_inverse(A: jax.Array) -> jax.Array:
 
 def det3(M: jax.Array) -> jax.Array:
     """Closed-form determinant of (..., 3, 3) — ``jnp.linalg.det`` lowers
-    tiny matrices through LU on TPU; the cofactor expansion is three FMAs."""
+    tiny matrices through LU; the cofactor expansion is three FMAs."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]

@@ -1,6 +1,6 @@
 """Grid-tiled corner extraction with static output shapes.
 
-TPU-native replacement for the reference's per-tile extractor calls:
+Replacement for the reference's per-tile extractor calls:
 ``getGridROI`` splits the frame into 255x255 tiles (OdometryPipeline.cpp:
 674-693) and runs ``cv::goodFeaturesToTrack`` per tile
 (OpenCVGoodFeatureExtractor.cpp:4-21: quality 0.01, min-distance 5) or the
@@ -8,8 +8,8 @@ from-scratch Shi-Tomasi extractor (ShiTomasiFeatureExtractor.cpp:5-47:
 threshold at quality*r_max, sort by score, top-max).
 
 Here the whole frame's response is computed once, non-max/min-distance
-suppression is a windowed max (the TPU-shaped equivalent of OpenCV's greedy
-min-distance scan), and per-tile top-k gives the same spatial spreading with
+suppression is a windowed max (the data-parallel equivalent of OpenCV's
+greedy min-distance scan), and per-tile top-k gives the same spatial spreading with
 a fixed (n_tiles * k) candidate capacity.
 """
 
@@ -62,16 +62,6 @@ def grid_extract(
     """
     H, W = img.shape
     if response == "min_eig":
-        if jax.default_backend() == "tpu":
-            # Fused Pallas kernel: ~10x the XLA op chain on real TPU.
-            from pmv_tpu.frontend import pallas_kernels
-
-            resp = pallas_kernels.min_eig_response(img)
-        else:
-            resp = min_eig_response(img)
-    elif response == "min_eig_xla":
-        # Plain XLA response — needed where pallas_call cannot be used
-        # (e.g. under vmap in the batched multi-sequence path).
         resp = min_eig_response(img)
     elif response == "harris":
         resp = harris_response(img)

@@ -1,6 +1,6 @@
 """FAST-9/16 corner detector, fully vectorized (no per-pixel loops).
 
-TPU-native replacement for the ``cv::FAST`` wrapper
+Replacement for the ``cv::FAST`` wrapper
 (OpenCVFASTFeatureExtractor.cpp:4-22: threshold 10, non-max suppression on,
 keeps the first ``max`` keypoints in scan order — unsorted, reproduced
 here). A pixel is a corner when >= 9 contiguous pixels on the 16-pixel

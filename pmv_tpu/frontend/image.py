@@ -1,6 +1,6 @@
 """Image-domain primitives: gradients, structure tensor, pyramids.
 
-TPU-native rewrite of the reference's lazy per-frame image cache
+Rewrite of the reference's lazy per-frame image cache
 (Frame.cpp:58-86 central-difference gradients, Frame.cpp:119-138 gradient
 products + 3x3 box blur "Harris matrix"). Everything is expressed as
 XLA-fusable elementwise ops and tiny separable convolutions over (H, W)

@@ -3,7 +3,7 @@
 The reference decouples image loading + feature extraction from pose
 estimation with a two-thread producer/consumer pipeline over a bounded
 ``dlib::pipe`` (OdometryPipeline.cpp:210-245, include/OdometryPipeline.h:
-246-251). The TPU-native equivalent: a background thread pool decodes frames
+246-251). The equivalent here: a background thread pool decodes frames
 ahead of the device loop into a bounded queue, so image IO/decode overlaps
 with the jitted per-frame step. Empty/corrupt images are skipped like the
 reference does (OdometryPipeline.cpp:218-219).

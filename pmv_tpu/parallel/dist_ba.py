@@ -2,12 +2,12 @@
 
 The reference's BA is a single-threaded-process Ceres solve
 (CeresBundleAdjustment.cpp:54-61, 4 intra-op threads). Here the problem is
-decomposed the TPU way (BASELINE.json north star):
+decomposed over the device mesh (BASELINE.json north star):
 
 - **lm axis (tensor-parallel analogue):** the landmark blocks of one window
   are sharded across chips. Each shard assembles its local V / W / b_lm and
   partial U / b_pose / reduced-system terms from its own observation shard;
-  the tiny (6P, 6P) reduced camera system is all-reduced over ICI
+  the tiny (6P, 6P) reduced camera system is all-reduced across devices
   (``lax.psum``) and solved redundantly on every chip; landmark
   back-substitution stays local. Communication per LM iteration is O(P^2)
   floats — independent of the landmark count.

@@ -1,7 +1,7 @@
 """Device-mesh construction helpers.
 
 The reference has no distributed backend at all (single process, one mutex,
-a bounded queue — SURVEY.md section 2). The TPU framework scales through
+a bounded queue — SURVEY.md section 2). This framework scales through
 ``jax.sharding.Mesh`` axes instead:
 
 - ``dp``  — data parallelism over independent BA windows / sequence chunks

@@ -8,9 +8,7 @@ full VO step for its own sequences with zero cross-chip communication.
 
 Within a chip the local batch is processed with ``lax.map`` (a scan), NOT
 ``vmap``: under vmap every ``lax.cond`` lowers to ``select`` so every frame
-pays the five-point bootstrap + PnP + BA + reseed simultaneously — measured
-28.7 aggregate fps at B=1 on a v5e chip versus 95 fps for the sequential
-path, and FLAT in B (the chip is already saturated; PERFORMANCE.md round 2).
+pays the five-point bootstrap + PnP + BA + reseed simultaneously.
 ``lax.map`` keeps real per-sequence XLA conditionals, so a chip time-
 multiplexes its local sequences at full sequential throughput and the
 multi-chip scaling story is per-chip-sequential x dp, still collective-free
@@ -44,9 +42,6 @@ def make_batched_chunk_step(mesh: Mesh | None, cfg: fused.StepConfig):
     collective-free (asserted by
     tests/test_parallel_flow.py::test_dp_step_has_no_collectives).
     """
-    if cfg.response == "min_eig":
-        cfg = cfg._replace(response="min_eig_xla")
-
     def batched(state, imgs, gts, keys, K):
         return jax.lax.map(
             lambda args: fused.chunk_step(*args, K, cfg),

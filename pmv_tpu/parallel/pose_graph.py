@@ -10,9 +10,9 @@ Pose convention matches the pipeline (reference composition semantics,
 OdometryPipeline.cpp:180-181): an edge (i, j) measures (R_ij, t_ij) with
 ``R_j = R_ij R_i`` and ``t_j = R_i t_ij + t_i``.
 
-The normal system is assembled as dense 6N x 6N (MXU-friendly; N of a few
-hundred keyframes solves in microseconds on-chip), with per-edge 6x6 blocks
-scatter-added — the TPU-shaped equivalent of a sparse pose-graph solver.
+The normal system is assembled as dense 6N x 6N (N is a few hundred
+keyframes), with per-edge 6x6 blocks scatter-added — the dense
+equivalent of a sparse pose-graph solver.
 """
 
 from __future__ import annotations

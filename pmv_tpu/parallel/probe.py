@@ -4,15 +4,12 @@ An n-virtual-device CPU mesh (``xla_force_host_platform_device_count``)
 time-shares the host's physical cores, so a naive 1-device-vs-n-device
 timing measures host oversubscription — its ceiling is cores/n, not the
 algorithm (round-2 probe printed 0.07 on a 2-core host and looked like a
-scaling failure). The honest configuration, per the SCALING.json
-methodology (PERFORMANCE.md "leg 2"): pin a 1-device baseline to ONE core
+scaling failure). The honest configuration: pin a 1-device baseline to ONE core
 (subprocess under ``taskset``), compare against a ``min(n, cores)``-device
 mesh where each virtual device maps 1:1 onto a physical core, with equal
-per-shard work. Alongside the measurement, the analytic ICI model for real
-v5e hardware is reported: the solver's per-LM-iteration cross-shard traffic
-is a constant ~4.6 KB of dependent all-reduces (asserted from compiled HLO
-by tests/test_dist_ba.py), latency-bound at ~15 us on ICI, against
-per-shard compute that the measured pinned-core time bounds from below.
+per-shard work. The solver's per-LM-iteration cross-shard traffic is a
+constant ~4.6 KB of dependent all-reduces (asserted from compiled HLO by
+tests/test_dist_ba.py), independent of the landmark count.
 """
 
 from __future__ import annotations
@@ -109,7 +106,7 @@ def pinned_one_shard_seconds(Ls: int, iters: int, timeout: int = 600) -> float |
     """1-device baseline in a subprocess pinned to ONE core (taskset).
 
     Returns None when pinning is unavailable (no taskset / subprocess
-    failure) — callers then report only the analytic model."""
+    failure) — callers then report only the mesh time."""
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     flags = re.sub(
@@ -136,7 +133,7 @@ def pinned_one_shard_seconds(Ls: int, iters: int, timeout: int = 600) -> float |
 
 
 def contention_probe(Ls: int = 8192, iters: int = 3, n_procs: int = 2, timeout: int = 900) -> dict:
-    """Isolation experiment for the small-Ls weak-scaling gap (VERDICT r4).
+    """Isolation experiment for the small-Ls weak-scaling gap.
 
     Runs ``n_procs`` INDEPENDENT single-core-pinned 1-shard solves
     CONCURRENTLY (distinct cores, zero communication, no sharding) and
@@ -198,10 +195,7 @@ def run_probe(n_devices: int, Ls: int = 8192, iters: int = 3) -> dict:
 
     Measured leg: pinned 1-core 1-shard baseline vs a c-device mesh
     (c = min(n_devices, physical cores)) doing c x the work — the only
-    virtual-mesh configuration whose efficiency reflects the algorithm.
-    Analytic leg: ICI model at v5e speeds from the same measurement
-    (compute >= 30x a host core on this memory-bound mix; comm ~15 us of
-    dependent all-reduces per LM iteration, payload constant in L)."""
+    virtual-mesh configuration whose efficiency reflects the algorithm."""
     cores = len(os.sched_getaffinity(0))
     c = min(n_devices, cores)
     result: dict = {"Ls_per_shard": Ls, "iters": iters, "mesh_devices": c}
@@ -222,19 +216,13 @@ def run_probe(n_devices: int, Ls: int = 8192, iters: int = 3) -> dict:
         # 32768). The small-Ls point is the labeled stress case: its gap is
         # host-DRAM contention of the CPU-mesh environment, not solver
         # overhead — proven by the zero-communication concurrent-pinned
-        # isolation experiment (contention_probe; SCALING.json).
+        # isolation experiment (contention_probe).
         Ls_refine = 4 * Ls
         t_c2 = time_sharded_solve(c, Ls_refine, iters)
         t_12 = pinned_one_shard_seconds(Ls_refine, iters)
         if t_12 is not None:
             result["Ls_refine"] = Ls_refine
             result["measured_efficiency_refine"] = t_12 / t_c2
-    # Analytic ICI model: per-iteration per-shard compute from the pinned
-    # measurement (or the mesh one), scaled to a v5e chip; comm latency-bound.
-    per_iter_core = (t_1 if t_1 is not None else t_c) / iters
-    t_compute_v5e = per_iter_core / 30.0
-    t_comm_ici = 15e-6
-    result["analytic_ici_efficiency"] = t_compute_v5e / (t_compute_v5e + t_comm_ici)
     return result
 
 

@@ -1,7 +1,7 @@
 """Segmented (sequence-parallel) visual odometry on a single chip or mesh.
 
 VO is frame-sequential, which caps per-chip throughput at the latency of one
-fused step. The TPU-native way around it (SURVEY.md section 5: "sequence
+fused step. The way around it (SURVEY.md section 5: "sequence
 scaling by windowing, never by parallel decomposition" is the reference's
 limitation, not ours): split the video into B contiguous segments with a
 one-frame overlap, run all segments simultaneously as a vmapped batch of
@@ -84,7 +84,7 @@ class SegmentedPipeline(OdometryPipeline):
             n_per_tile=max(1, math.ceil(cfg.min_tracked_features / n_tiles)),
             quality=preset["quality"],
             min_distance=preset["min_distance"],
-            response="min_eig_xla" if preset["response"] == "min_eig" else preset["response"],
+            response=preset["response"],
             tracked_tol=cfg.tracked_features_tol,
             e_hypos=cfg.ransac_e_hypos,
             e_thresh=cfg.ransac_e_thresh,

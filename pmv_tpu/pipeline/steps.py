@@ -2,7 +2,7 @@
 window assembly.
 
 These are the fused XLA programs the host-side orchestrator
-(pmv_tpu.pipeline.odometry) dispatches once per frame — the TPU-native
+(pmv_tpu.pipeline.odometry) dispatches once per frame — the device-side
 equivalent of the reference's addFrame/estimatePose inner machinery
 (OdometryPipeline.cpp:329-374, :376-426) over static-shape feature tables.
 """
@@ -24,29 +24,36 @@ from pmv_tpu.frontend import lucas_kanade as lk
 # jax.distributed.initialize (multi-host bootstrap ordering).
 import numpy as _np
 
+# Full f32 for the geometry products (no TF32 on the GPU's tensor cores).
+_PREC = jax.lax.Precision.HIGHEST
+
 FLIP = _np.diag(_np.array([1.0, 1.0, -1.0], _np.float32))
 
 
-def lk_module(impl: str, win: int | None = None, search: int | None = None):
-    """Resolve an LK tracker implementation name to its module.
+def resolve_lk_impl(impl: str, backend: str, win: int) -> str:
+    """The LK tracker a configured ``lk_impl`` runs on ``backend``.
 
-    ``tap``: XLA tap-matrix tracker (lucas_kanade). ``pallas``: fused VPU
-    kernel (pallas_lk). ``auto``: pallas on TPU backends — unless the
-    configured window/search region exceeds the kernels' scoped-VMEM budget
-    (pallas_lk.fits_vmem; since the round-4 template/iteration kernel split
-    this covers the reference-parity win=32 region of 84x84 with headroom —
-    the bound now trips only for exotic window/search combinations) — tap
-    elsewhere. Pass ``win``/``search`` wherever the config is at hand so
-    'auto' can apply the VMEM feasibility check.
-    """
+    ``tap``: the plain-XLA tracker (lucas_kanade). ``pallas``: the per-level
+    Pallas kernel (pallas_lk), compiled by Triton, so GPU only — asking for
+    it elsewhere raises instead of falling back to the interpreter.
+    ``auto``: ``pallas`` on the GPU for windows the kernel takes, ``tap``
+    otherwise."""
+    from pmv_tpu.frontend import pallas_lk
+
     if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "tap"
-        if impl == "pallas" and win is not None:
-            from pmv_tpu.frontend import pallas_lk
+        return "pallas" if backend == "gpu" and pallas_lk.supports(win) else "tap"
+    if impl == "pallas" and backend != "gpu":
+        raise ValueError(
+            f"lk_impl=pallas needs the GPU backend (got {backend!r}); "
+            "use lk_impl=tap or auto"
+        )
+    if impl not in ("tap", "pallas"):
+        raise ValueError(f"unknown lk_impl {impl!r} (tap | pallas | auto)")
+    return impl
 
-            Rg = lk.region_size(win, lk._resolve_search(win, search or None))
-            if not pallas_lk.fits_vmem(Rg):
-                impl = "tap"
+
+def lk_module(impl: str):
+    """Module of a resolved tracker name (:func:`resolve_lk_impl`)."""
     if impl == "pallas":
         from pmv_tpu.frontend import pallas_lk
 
@@ -65,7 +72,7 @@ def track_step(
 ) -> FeatureTable:
     """LK-track the previous frame's features into the next frame.
 
-    Slot-aligned correspondence (the TPU equivalent of the reference's
+    Slot-aligned correspondence (the static-shape equivalent of the reference's
     ``feat_corr`` weak-ptr map, OpenCVLucasKanadeFM.cpp:19-30): slot i of the
     returned table corresponds to slot i of ``prev_table``; ``valid`` is the
     track status; the landmark association is inherited.
@@ -96,11 +103,11 @@ def track_step_cached(
     previous frame's cached region blocks (half the block gathers). Returns
     (table, new_blocks) — thread ``new_blocks`` into the next call.
 
-    ``impl`` selects the tracker backend: ``tap`` (XLA tap-matrix matmuls)
-    or ``pallas`` (fused VPU kernel, pmv_tpu.frontend.pallas_lk) — the two
-    use different block layouts, so ``blocks`` must come from the matching
+    ``impl`` selects the tracker: ``tap`` (XLA tap-matrix matmuls) or
+    ``pallas`` (one kernel per level, pmv_tpu.frontend.pallas_lk) — their
+    blocks differ in size, so ``blocks`` must come from the matching
     module's capture_blocks."""
-    mod = lk_module(impl, win, search)
+    mod = lk_module(impl)
     new_xy, status, new_blocks = mod.track_cached(
         blocks, next_pyr, prev_table.xy, prev_table.valid, win=win, iters=iters,
         search=search if search > 0 else None,
@@ -292,7 +299,7 @@ def continuous_triangulate(
     traces). Continuously triangulating fresh (reseeded) features from the
     ALREADY-ESTIMATED relative pose keeps ``count3DPoints`` dense so the
     bootstrap becomes a true cold-start path — fewer five-point solves AND
-    denser PnP/BA correspondence. TPU-shaped: one closed-form midpoint
+    denser PnP/BA correspondence. One closed-form midpoint
     solve batched over all N slots (geometry.triangulate_midpoint), no
     RANSAC — gating (cheirality both views, depth band, reprojection error
     both views, parallax) replaces consensus, and PnP's outlier erase
@@ -306,14 +313,17 @@ def continuous_triangulate(
     F = jnp.asarray(FLIP, R1.dtype)
     # Relative pose in STANDARD camera coords (see register_triangulated's
     # flip convention): x_std = F R^T (p_w - t).
-    R_rel = F @ R2.T @ R1 @ F
-    t_rel = (F @ (R2.T @ (t1 - t2))[..., None])[..., 0]
+    def mm(a, b):
+        return jnp.matmul(a, b, precision=_PREC)
+
+    R_rel = mm(mm(mm(F, R2.T), R1), F)
+    t_rel = mm(F, mm(R2.T, (t1 - t2)[..., None]))[..., 0]
     x1 = normalize_points(src_table.xy, K)
     x2 = normalize_points(next_table.xy, K)
     X1_std, sin2 = geo.triangulate_midpoint(R_rel, t_rel, x1, x2)
     z1 = X1_std[..., 2]
-    z2 = (X1_std @ R_rel.T + t_rel)[..., 2]
-    X_world = geo.transform(X1_std @ F, R1, t1)
+    z2 = (mm(X1_std, R_rel.T) + t_rel)[..., 2]
+    X_world = geo.transform(mm(X1_std, F), R1, t1)
     e1 = jnp.linalg.norm(
         geo.project_points(X_world, R1, t1, K) - src_table.xy, axis=-1
     )

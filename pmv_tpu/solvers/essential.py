@@ -1,12 +1,12 @@
 """Essential-matrix estimation, pose recovery and triangulation — batched JAX.
 
-TPU-native replacement for the reference's bootstrap triangulator
+Replacement for the reference's bootstrap triangulator
 (OpenCVFivePointTri.cpp:5-54): ``cv::findEssentialMat`` (RANSAC, prob .99,
 1 px threshold) + ``cv::recoverPose`` (cheirality + triangulation). The
 minimal solver here is the normalized 8-point algorithm over batched
 hypotheses (one vmapped 9x9 eigendecomposition instead of Nister's degree-10
-polynomial — the polynomial root-finder has no stable TPU-native
-eigensolver path; 8-point over 150+ LK tracks matches its accuracy in
+polynomial — the polynomial root-finder needs a nonsymmetric
+eigensolver that XLA does not batch on the device; 8-point over 150+ LK tracks matches its accuracy in
 practice), scored by Sampson distance, refit on the best inlier set.
 
 Conventions (identical to OpenCV, which the pipeline layer adapts to the
@@ -66,7 +66,7 @@ def _eight_point(x1: jax.Array, x2: jax.Array, w: jax.Array) -> jax.Array:
     # Enforce rank-2 essential structure with equal singular values.
     U, s, Vt = jnp.linalg.svd(E)
     s_mean = (s[0] + s[1]) * 0.5
-    E = (U * jnp.array([s_mean, s_mean, 0.0], E.dtype)) @ Vt
+    E = jnp.matmul(U * jnp.array([s_mean, s_mean, 0.0], E.dtype), Vt, precision=_PREC)
     return E
 
 
@@ -177,7 +177,7 @@ def refine_relative_pose(
         Rp = jnp.matmul(geo_rodrigues(params[:3]), R, precision=_PREC)
         tp = params[3:]
         tn = tp / jnp.maximum(jnp.linalg.norm(tp), 1e-12)
-        E = geo_hat(tn) @ Rp
+        E = jnp.matmul(geo_hat(tn), Rp, precision=_PREC)
         return jnp.sqrt(sampson_error(E, x1, x2) + 1e-18) * weights
 
     def body(_, params):
@@ -206,10 +206,8 @@ def triangulate_points_fast(
     normal-equation closed form (adjugate) instead of a batched 4x4
     eigendecomposition.
 
-    On TPU the batched eigh costs ~1.5 ms at N=512 while this runs in ~0.3
-    ms (scripts/tpu_tri_bench.py) — and recover_pose triangulates 5x per
-    bootstrap event, making eigh the dominant cost of the whole five-point
-    branch. Agreement with the eigh path is ~1e-3 on inlier-parallax
+    recover_pose triangulates 5x per bootstrap event, so a batched eigh
+    here would run five times per event. Agreement with the eigh path is ~1e-3 on inlier-parallax
     points; both degrade together near w -> 0 (points at infinity), which
     cheirality masks and the BA gate handle downstream.
     """
@@ -279,16 +277,15 @@ def recover_pose(
     U = U * jnp.sign(jnp.linalg.det(U))
     Vt = Vt * jnp.sign(jnp.linalg.det(Vt))
     W = jnp.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], E.dtype)
-    Ra = U @ W @ Vt
-    Rb = U @ W.T @ Vt
+    Ra = jnp.matmul(jnp.matmul(U, W, precision=_PREC), Vt, precision=_PREC)
+    Rb = jnp.matmul(jnp.matmul(U, W.T, precision=_PREC), Vt, precision=_PREC)
     tu = U[:, 2]
     x1 = normalize_points(p1, K)
     x2 = normalize_points(p2, K)
 
     def score(R, t):
-        # Closed-form 3x3 DLT: the batched 4x4 eigh ran 5x per bootstrap
-        # event and dominated the whole five-point branch on TPU (~1.5 ms
-        # each vs ~0.3 ms; scripts/tpu_tri_bench.py).
+        # Closed-form 3x3 DLT instead of a batched 4x4 eigh, which would
+        # run 5x per bootstrap event.
         X = triangulate_points_fast(R, t, x1, x2)
         z1 = X[:, 2]
         z2 = (jnp.matmul(X, R.T, precision=_PREC) + t)[:, 2]

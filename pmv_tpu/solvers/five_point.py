@@ -1,8 +1,8 @@
-"""Nister five-point minimal essential-matrix solver — batched, TPU-native.
+"""Nister five-point minimal essential-matrix solver — batched JAX.
 
 The reference's default triangulator calls cv::findEssentialMat, whose
 minimal solver is Nister's five-point algorithm (OpenCVFivePointTri.cpp:24).
-This is a from-scratch implementation shaped for TPU:
+This is a from-scratch implementation shaped for batched device execution:
 
 1. The 4-dim nullspace of the 5x9 epipolar constraint matrix gives
    ``E = x*E1 + y*E2 + z*E3 + E4``.
@@ -14,7 +14,8 @@ This is a from-scratch implementation shaped for TPU:
    higher-degree (x,y)-monomials leaves three equations linear in (x, y)
    with polynomial-in-z coefficients; their 3x3 determinant is the classic
    degree-10 polynomial p(z).
-4. Real roots are found WITHOUT a nonsymmetric eigensolver (TPU has none):
+4. Real roots are found WITHOUT a nonsymmetric eigensolver (XLA has none
+   on the device):
    p is evaluated on a tan-substituted grid covering the whole real line,
    sign changes are bracketed, and a fixed number of bisection steps
    polishes each root — branch-free and fully vectorized.

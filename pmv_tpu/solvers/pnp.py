@@ -1,7 +1,7 @@
 """Perspective-n-Point pose estimation — batched DLT hypotheses + IRLS
 Gauss-Newton refinement.
 
-TPU-native replacement for the reference's PnP stage
+Replacement for the reference's PnP stage
 (OpenCVEPnPSolver.cpp:4-50): ``cv::solvePnPRansac(..., useExtrinsicGuess=true,
 100 iters, 8 px, .99)`` — which, despite the class name, runs
 SOLVEPNP_ITERATIVE. Here: a fixed batch of 6-point DLT hypotheses (vmapped
@@ -42,10 +42,9 @@ def _project_std(aa: jax.Array, t: jax.Array, X: jax.Array, K: jax.Array) -> jax
 def _smallest_eigvec12(M: jax.Array) -> jax.Array:
     """Smallest eigenvector of a PSD (12, 12) matrix by ridged inverse
     iteration (one pivot-free Gauss-Jordan inverse + 3 matvecs). Under the
-    caller's vmap this is pure batched VPU work — orders of magnitude
-    cheaper on TPU than ``eigh`` (iterative QR sweeps serialize tiny
-    matrices) and ~10x cheaper than batched pivoted LU (per-column max
-    search + row swaps; measured 0.56 -> ~0.05 ms at H=128). The ridge
+    caller's vmap this is pure batched elementwise work, where ``eigh``
+    runs iterative sweeps and pivoted LU a per-column max search and
+    row swaps on each tiny matrix. The ridge
     keeps every GJ pivot positive. Hypothesis-grade accuracy only: the
     DLT null direction is amplified ~1/mu per solve (>= 1e4 vs the next
     eigendirection), and RANSAC scoring + the GN polish do the precision
@@ -54,7 +53,7 @@ def _smallest_eigvec12(M: jax.Array) -> jax.Array:
     Minv = gj_inverse(M + mu * jnp.eye(12, dtype=M.dtype))
     v = jnp.full((12,), 1.0 / jnp.sqrt(12.0), M.dtype)
     for _ in range(3):
-        v = Minv @ v
+        v = jnp.matmul(Minv, v, precision=_PREC)
         v = v / jnp.maximum(jnp.linalg.norm(v), 1e-30)
     return v
 
@@ -138,8 +137,7 @@ def gauss_newton_refine(
         r = residual(params)
         H = jnp.matmul(J.T, J, precision=_PREC) + 1e-6 * jnp.eye(6, dtype=J.dtype)
         g = jnp.matmul(J.T, r, precision=_PREC)
-        step = gj_solve(H, g[:, None])[:, 0]  # damped SPD; pivoted LU is
-        # latency-serial on TPU for a lone 6x6 (10 of these chain per call)
+        step = gj_solve(H, g[:, None])[:, 0]  # damped SPD: no pivoting
         return params - step
 
     params = jnp.concatenate([aa0, t0])

@@ -3,7 +3,7 @@
 The reference relies on OpenCV's sequential RANSAC loops
 (``cv::findEssentialMat`` with prob .99 / 1 px, OpenCVFivePointTri.cpp:24;
 ``cv::solvePnPRansac`` with 100 iterations / 8 px, OpenCVEPnPSolver.cpp:35-36).
-On TPU, data-dependent iteration counts are replaced by a fixed batch of
+Data-dependent iteration counts are replaced by a fixed batch of
 hypotheses solved simultaneously: sample H minimal sets, solve all H models
 with one vmapped linear solve, score all H x N residuals as one tensor op,
 and argmax the masked inlier count.

@@ -2,7 +2,7 @@
 
 The reference has no restorable state at all (SURVEY.md section 5 — only the
 error file and video are persisted). For long multi-sequence production runs
-the TPU framework checkpoints the full pipeline state — trajectory,
+this framework checkpoints the full pipeline state — trajectory,
 heuristic history, landmark map, per-frame feature tables, RNG key, scale —
 as a single compressed npz, and can resume mid-sequence.
 """

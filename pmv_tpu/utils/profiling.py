@@ -4,7 +4,7 @@ The reference carries a hand-rolled nestable stopwatch (``tick``/``tock``,
 include/OdometryPipeline.h:113, OdometryPipeline.cpp:84-91) used for the
 run-level and per-stage timings printed under ``verbose``. :class:`Stopwatch`
 reproduces that stack discipline; :func:`trace` wraps ``jax.profiler`` for
-real TPU traces.
+device traces.
 """
 
 from __future__ import annotations

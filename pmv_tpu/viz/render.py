@@ -3,7 +3,7 @@
 Offline replacements for the reference's live GUI output: ``drawMap``
 (OdometryPipeline.cpp:104-169 — 511x511 top-down map, landmark dots colored
 by image side, green estimated path/pose rectangle, red ground truth) and
-the per-frame feature crosses (``drawCross``, :93-102). A headless TPU run
+the per-frame feature crosses (``drawCross``, :93-102). A headless run
 renders the same artifacts to PNG/AVI instead of cv::imshow windows.
 """
 

@@ -1,4 +1,4 @@
-"""Isolation experiment for the small-Ls weak-scaling gap (VERDICT r4 #6a).
+"""Isolation experiment for the small-Ls weak-scaling gap.
 
 Question: is the sub-0.70 measured efficiency at Ls=8192/shard on the
 2-core CPU mesh (a) host memory-system contention — both cores hammering
@@ -9,7 +9,7 @@ CONCURRENTLY. They communicate nothing and share no sharding machinery; any
 slowdown vs the solo pinned baseline is pure memory-system contention. If
 that slowdown reproduces the mesh's per-shard slowdown, (a) is proven.
 
-Appends the result to SCALING.json under "contention_probe".
+Prints the result as one JSON object.
 
 Usage: python scripts/contention_probe.py   (idle host!)
 """
@@ -59,9 +59,7 @@ def main() -> None:
             flush=True,
         )
 
-    scaling = REPO / "SCALING.json"
-    data = json.loads(scaling.read_text()) if scaling.exists() else {}
-    data["contention_probe"] = {
+    data = {
         "experiment": (
             "two independent single-core-pinned 1-shard solves run "
             "concurrently (zero communication, zero sharding) vs the solo "
@@ -71,8 +69,7 @@ def main() -> None:
         ),
         "results": results,
     }
-    scaling.write_text(json.dumps(data, indent=2) + "\n")
-    print(f"recorded in {scaling}")
+    print(json.dumps(data, indent=2))
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Drift-mechanism analysis of diag_seed.py dumps (VERDICT r4 #8).
+"""Drift-mechanism analysis of diag_seed.py dumps.
 
 Question: the tuned 598-frame ATE spreads 2x across seeds (8.45-18.25 m).
 Where does the extra drift of a bad seed accumulate — at tri

@@ -22,10 +22,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import jax
+from pmv_tpu.utils import compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/pmv_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+compile_cache.enable()
 
 import numpy as np
 
@@ -40,7 +39,7 @@ def main() -> None:
     from pmv_tpu.config import VOConfig
     from pmv_tpu.pipeline.odometry import OdometryPipeline
 
-    d = Path("/tmp/pmv_bench_data") / f"seq_{FRAMES}_{SHAPE[0]}x{SHAPE[1]}"
+    d = Path(__file__).resolve().parent.parent / ".bench_data" / f"seq_{FRAMES}_{SHAPE[0]}x{SHAPE[1]}"
     assert (d / "ok").exists(), "dataset missing - run bench.py first"
     base = dict(
         image_dir=str(d / "image_0"),

@@ -1,4 +1,4 @@
-"""North-star demo at production scale (VERDICT r4 #7): tuned 598-frame
+"""North-star demo at production scale: tuned 598-frame
 run -> mesh-parallel global refinement -> before/after ATE + wall time.
 
 The test suite pins the composition only at test scale (test_fused_compose:
@@ -35,8 +35,9 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/pmv_jax_cache_cpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pmv_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np
 
@@ -65,7 +66,7 @@ def main() -> None:
     from pmv_tpu.parallel import global_refine, mesh as mesh_lib
     from pmv_tpu.pipeline.odometry import OdometryPipeline
 
-    d = Path("/tmp/pmv_bench_data") / f"seq_{FRAMES}_{SHAPE[0]}x{SHAPE[1]}"
+    d = REPO / ".bench_data" / f"seq_{FRAMES}_{SHAPE[0]}x{SHAPE[1]}"
     if not (d / "ok").exists():
         seq = synthetic.make_sequence(
             n_frames=FRAMES, shape=SHAPE, K=synthetic.KITTI_K,

@@ -19,8 +19,7 @@ of an ``xla_force_host_platform_device_count`` mesh share this host's
 physical cores (2 here), so wall-clock efficiency is bounded by core
 count, NOT by the algorithm — per-shard work is genuinely independent
 (the HLO contains only the psum-reduced camera system as cross-shard
-traffic). On real v5e ICI the collective is ~us-scale for these payloads;
-see PERFORMANCE.md's cost model.
+traffic). The collective's time on real devices is not measured here.
 """
 
 from __future__ import annotations
@@ -243,7 +242,7 @@ def bench_multi_seq(chunks: int = 3, C: int = 4, only_B: int | None = None) -> l
     cfg = fused.StepConfig(
         lk_levels=3, lk_window=15, lk_iters=5, tile_h=H, tile_w=W,
         n_per_tile=N, tracked_tol=32, e_hypos=64, pnp_hypos=64,
-        bundle_size=4, ba_iters=3, traj_cap=32, response="min_eig_xla",
+        bundle_size=4, ba_iters=3, traj_cap=32,
     )
     K = jnp.asarray(
         np.array([[0.6 * W, 0, W / 2], [0, 0.6 * W, H / 2], [0, 0, 1]], np.float32)
@@ -261,7 +260,7 @@ def bench_multi_seq(chunks: int = 3, C: int = 4, only_B: int | None = None) -> l
             img0 = jnp.asarray(seq["images"][0])
             from pmv_tpu.frontend.corners import grid_extract, select_top
 
-            xy, sc, va = grid_extract(img0, N, tile_h=H, tile_w=W, response="min_eig_xla")
+            xy, sc, va = grid_extract(img0, N, tile_h=H, tile_w=W)
             txy, tsc, tva = select_top(xy, sc, va, N)
             table = FeatureTable(
                 xy=txy, valid=tva, landmark=jnp.full((N,), -1, jnp.int32), score=tsc
@@ -347,8 +346,7 @@ def main() -> None:
         "dist_ba_worksweep": sweep_rows,
         "multi_seq": seq_rows,
     }
-    Path("/tmp/pmv_scaling.json").write_text(json.dumps(out, indent=1))
-    print("\nwrote /tmp/pmv_scaling.json")
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

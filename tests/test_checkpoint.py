@@ -72,7 +72,7 @@ class TestFusedCheckpoint:
     def test_resume_bit_identical_to_uninterrupted(self, tmp_path):
         """A run interrupted mid-sequence and resumed from the snapshot must
         reproduce the uninterrupted trajectory, map, and error metrics
-        bit-for-bit (the fused production path — VERDICT round-1 item 7)."""
+        bit-for-bit (the fused production path)."""
         frames = 14
         # Uninterrupted reference run.
         full = make_pipe(tmp_path, frames=frames, chunk_frames=2)

@@ -230,7 +230,7 @@ class TestContinuousTriangulation:
     """steps.continuous_triangulate (cont_tri, default OFF): midpoint
     triangulation of unbound tracked slots from two accepted world poses.
 
-    Kept default-off: an e2e A/B (PERFORMANCE.md round 5) showed it cuts
+    Kept default-off: an e2e A/B showed it cuts
     five-point re-bootstraps ~4x but DEGRADES ATE — the reference design
     re-injects GT scale at every bootstrap (OpenCVFivePointTri.cpp:28-34),
     so suppressing bootstraps removes the pipeline's periodic scale

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pmv_tpu.frontend import corners, image, lucas_kanade as lk
 from pmv_tpu.io import synthetic
@@ -174,3 +175,57 @@ class TestTrackCached:
         np.testing.assert_allclose(
             np.asarray(cach2_xy)[both2], np.asarray(fresh2_xy)[both2], atol=0.25
         )
+
+
+class TestTapSampling:
+    def test_tap_window_matches_pointwise_bilinear(self, rng):
+        """The tracker's separable tap-matrix sampling at win 21 / search 10
+        (Rg 55) equals pointwise bilinear_sample on every window pixel."""
+        win, search = 21, 10
+        Rg = lk.region_size(win, search)
+        assert Rg == 55
+        region = jnp.asarray(rng.uniform(0, 255, (6, Rg, Rg)).astype(np.float32))
+        lim = Rg - win - 1.000001
+        lr = jnp.asarray(rng.uniform(0, lim, 6).astype(np.float32))
+        lc = jnp.asarray(rng.uniform(0, lim, 6).astype(np.float32))
+        got = np.asarray(lk._sample_window(region, lr, lc, win))
+        k = np.arange(win, dtype=np.float32)
+        for n in range(6):
+            yy, xx = np.meshgrid(float(lr[n]) + k, float(lc[n]) + k, indexing="ij")
+            want = lk.bilinear_sample(region[n], jnp.asarray(yy), jnp.asarray(xx))
+            np.testing.assert_allclose(got[n], np.asarray(want), rtol=1e-5, atol=1e-3)
+
+
+class TestLKSelection:
+    """steps.resolve_lk_impl: a pure function of (impl, backend, win)."""
+
+    @pytest.mark.parametrize(
+        "impl, backend, win, want",
+        [
+            ("auto", "gpu", 21, "pallas"),
+            ("auto", "gpu", 32, "pallas"),
+            ("auto", "gpu", 33, "tap"),
+            ("auto", "cpu", 21, "tap"),
+            ("tap", "gpu", 21, "tap"),
+            ("tap", "cpu", 21, "tap"),
+            ("pallas", "gpu", 21, "pallas"),
+        ],
+    )
+    def test_resolves(self, impl, backend, win, want):
+        from pmv_tpu.pipeline import steps
+
+        assert steps.resolve_lk_impl(impl, backend, win) == want
+
+    @pytest.mark.parametrize("impl, backend", [("pallas", "cpu"), ("bogus", "gpu")])
+    def test_refuses(self, impl, backend):
+        from pmv_tpu.pipeline import steps
+
+        with pytest.raises(ValueError):
+            steps.resolve_lk_impl(impl, backend, 21)
+
+    def test_module_of_each_name(self):
+        from pmv_tpu.frontend import pallas_lk
+        from pmv_tpu.pipeline import steps
+
+        assert steps.lk_module("tap") is lk
+        assert steps.lk_module("pallas") is pallas_lk

@@ -1,6 +1,6 @@
 """The fused production path must COMPOSE with the offline layers.
 
-Round-2 gap (VERDICT): ``chunk_step`` kept only the first/last feature
+Earlier, ``chunk_step`` kept only the first/last feature
 table, so a production run had to be re-run in modular mode before global
 refinement or per-frame video annotation could consume it. The fused state
 now persists every frame's table on device (StepState.tbl_*_hist, the
@@ -98,7 +98,7 @@ class TestPerFrameTables:
 
 class TestFusedGlobalRefine:
     def test_refine_improves_drifted_chunked_run(self, fused_run):
-        """VERDICT round-2 item 5 'done' criterion: fused run
+        """Fused run
         (chunk_frames=8) -> inject drift -> global_bundle_adjust strictly
         improves."""
         paths, _, tmp = fused_run
@@ -134,7 +134,7 @@ class TestCompileCacheKey:
     def test_step_config_constant_in_frame_count(self, fused_run):
         """traj_cap (and every other static field) must not depend on
         cfg.frames: the jitted programs are keyed on StepConfig and a fresh
-        remote compile costs minutes (VERDICT round-2 weak item 5)."""
+        compile of the chunk program takes a long time."""
         paths, _, tmp = fused_run
         a = OdometryPipeline(_make_cfg(paths, tmp, frames=10))._step_config(SHAPE)
         b = OdometryPipeline(_make_cfg(paths, tmp, frames=FRAMES))._step_config(SHAPE)

@@ -112,7 +112,7 @@ class TestSynthetic:
         assert seq["images"].std() > 1.0
 
     def test_stopgo_family_actually_stops(self):
-        """Stop-go trajectory family (VERDICT r4 #9): the speed profile must
+        """Stop-go trajectory family: the speed profile must
         ramp to ~0 during stops and recover to full speed between them."""
         R, t = synthetic.make_trajectory(
             100, speed=1.0, stop_every=30, stop_len=8, seed=0

@@ -1,8 +1,8 @@
-"""Long-horizon robustness pin (VERDICT round-2 item 8).
+"""Long-horizon robustness pin.
 
 The 600-frame heading divergences of round 1 (~25% of seeds, ATE 280-540 m)
 were fixed by two mechanisms — decoupled dense reseeding (reseed_tol=300)
-and f32 BA gauge Tikhonov (PERFORMANCE.md round 2). This CI-scale test pins
+and f32 BA gauge Tikhonov. This CI-scale test pins
 them: a 200-frame corridor at a reduced frame size, two seeds, fused chunked
 loop, asserting rebased ATE under a generous bound (calibrated values are
 ~3-5 m; a regression of either fix produces tens-to-hundreds of meters).

@@ -1,11 +1,13 @@
-"""Pallas pyramidal-LK kernel vs the XLA tap-matrix tracker.
+"""Pallas LK kernel (Triton route) vs the XLA tap-matrix tracker.
 
-Interpreter mode on the CPU mesh; the identical kernel compiles natively
-on TPU (where it replaces ~10 ms/frame of ~3%-utilization MXU matmuls
-with lane-parallel VPU work)."""
+The kernel runs in the Pallas interpreter here (``interpret=True``); the
+compiled kernel is checked on the card by tests/test_gpu.py."""
 
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pmv_tpu.frontend import corners, image, lucas_kanade as lk, pallas_lk
 from pmv_tpu.io import synthetic
@@ -23,6 +25,10 @@ def _setup(n_frames=3, seed=2, n_per_tile=48):
     return imgs, xy, valid, pyrs
 
 
+def _track(blocks, pyr, xy, valid, win):
+    return pallas_lk.track_cached(blocks, pyr, xy, valid, win=win, interpret=True)
+
+
 class TestPallasLK:
     def test_matches_xla_tracker(self):
         imgs, xy, valid, pyrs = _setup()
@@ -33,47 +39,46 @@ class TestPallasLK:
         ref_xy, ref_st, ref_blocks = lk.track_cached(
             ref_blocks, pyrs[1], xy, valid, win=win
         )
-        pal_xy, pal_st, pal_blocks = pallas_lk.track_cached(
-            pal_blocks, pyrs[1], xy, valid, win=win
-        )
+        pal_xy, pal_st, pal_blocks = _track(pal_blocks, pyrs[1], xy, valid, win)
         both = np.asarray(ref_st) & np.asarray(pal_st)
         assert both.sum() >= int(np.asarray(ref_st).sum()) * 0.95
         np.testing.assert_allclose(
             np.asarray(pal_xy)[both], np.asarray(ref_xy)[both], atol=5e-3
         )
 
-        # second hop: templates come from blocks captured DURING tracking,
-        # exercising the (Rg, Rg, N) block threading
+        # second hop: templates come from blocks captured DURING tracking
         ref2_xy, ref2_st, _ = lk.track_cached(
             ref_blocks, pyrs[2], ref_xy, ref_st, win=win
         )
-        pal2_xy, pal2_st, _ = pallas_lk.track_cached(
-            pal_blocks, pyrs[2], pal_xy, pal_st, win=win
-        )
+        pal2_xy, pal2_st, _ = _track(pal_blocks, pyrs[2], pal_xy, pal_st, win)
         both2 = np.asarray(ref2_st) & np.asarray(pal2_st)
         assert both2.sum() >= int(np.asarray(ref2_st).sum()) * 0.9
         np.testing.assert_allclose(
             np.asarray(pal2_xy)[both2], np.asarray(ref2_xy)[both2], atol=2e-2
         )
 
-    def test_block_layout_is_feature_lanes(self):
+    def test_blocks_extend_the_tap_regions(self):
+        """Feature-major (N, B, B) blocks: the tap tracker's (N, Rg, Rg)
+        regions at the same origins, plus B - Rg rows/cols of image."""
         _, xy, valid, pyrs = _setup(n_frames=2)
-        blocks = pallas_lk.capture_blocks(tuple(pyrs[0]), xy, win=15)
-        N = xy.shape[0]
-        blk, r0, c0 = blocks[0]
-        Rg = lk.region_size(15, lk._resolve_search(15, None))
-        assert blk.shape == (Rg, Rg, N)
-        assert r0.shape == (N,)
+        win = 15
+        search = lk._resolve_search(win, None)
+        Rg, B = lk.region_size(win, search), pallas_lk.block_size(win, search)
+        ref = lk.capture_blocks(tuple(pyrs[0]), xy, win=win)
+        got = pallas_lk.capture_blocks(tuple(pyrs[0]), xy, win=win)
+        for (rb, rr, rc), (kb, kr, kc) in zip(ref, got):
+            assert kb.shape == (xy.shape[0], B, B)
+            np.testing.assert_array_equal(np.asarray(kr), np.asarray(rr))
+            np.testing.assert_array_equal(np.asarray(kc), np.asarray(rc))
+            np.testing.assert_array_equal(np.asarray(kb)[:, :Rg, :Rg], np.asarray(rb))
 
-    def test_non_multiple_of_128_features(self):
-        """N not divisible by the 128-lane program width must pad cleanly."""
+    def test_non_power_of_two_features(self):
+        """N = 33: one program per feature, no padding of N."""
         imgs, xy, valid, pyrs = _setup()
         n = 33
         xy33, valid33 = xy[:n], valid[:n]
         blocks = pallas_lk.capture_blocks(tuple(pyrs[0]), xy33, win=15)
-        pal_xy, pal_st, _ = pallas_lk.track_cached(
-            blocks, pyrs[1], xy33, valid33, win=15
-        )
+        pal_xy, pal_st, _ = _track(blocks, pyrs[1], xy33, valid33, 15)
         ref_blocks = lk.capture_blocks(tuple(pyrs[0]), xy33, win=15)
         ref_xy, ref_st, _ = lk.track_cached(ref_blocks, pyrs[1], xy33, valid33, win=15)
         both = np.asarray(ref_st) & np.asarray(pal_st)
@@ -86,20 +91,71 @@ class TestPallasLK:
         imgs, xy, valid, pyrs = _setup(n_frames=2)
         valid1 = jnp.zeros_like(valid).at[0].set(valid[0])
         blocks = pallas_lk.capture_blocks(tuple(pyrs[0]), xy, win=15)
-        _, st, _ = pallas_lk.track_cached(blocks, pyrs[1], xy, valid1, win=15)
+        _, st, _ = _track(blocks, pyrs[1], xy, valid1, 15)
         assert not bool(st[1:].any())
 
+    def test_win32_matches_tap(self):
+        """The reference-parity window (win 32 = one full 32 x 32 tile)."""
+        imgs, xy, valid, pyrs = _setup()
+        win = 32
+        ref_blocks = lk.capture_blocks(tuple(pyrs[0]), xy, win=win)
+        pal_blocks = pallas_lk.capture_blocks(tuple(pyrs[0]), xy, win=win)
+        ref_xy, ref_st, _ = lk.track_cached(ref_blocks, pyrs[1], xy, valid, win=win)
+        pal_xy, pal_st, _ = _track(pal_blocks, pyrs[1], xy, valid, win)
+        both = np.asarray(ref_st) & np.asarray(pal_st)
+        assert both.sum() >= int(np.asarray(ref_st).sum()) * 0.95
+        np.testing.assert_allclose(
+            np.asarray(pal_xy)[both], np.asarray(ref_xy)[both], atol=5e-3
+        )
 
-def test_fused_pipeline_with_pallas_lk():
-    """chunk_step with lk_impl='pallas' (interpret mode on CPU) must stay
+    def test_level_min_eig_matches_template_stats(self):
+        """The kernel's template statistics equal lucas_kanade's on the
+        same sampled template (iters=0: the guess comes back unchanged)."""
+        _, xy, valid, pyrs = _setup(n_frames=2)
+        win, search = 15, 7
+        img = pyrs[0][0]
+        PAD = lk._pad_for(win, search)
+        blk, r0, c0 = pallas_lk._capture(img, xy, win, search)
+        half = (win - 1) / 2.0
+        raw_r = xy[:, 1] + PAD - half - 1.0 - r0
+        raw_c = xy[:, 0] + PAD - half - 1.0 - c0
+        lim = lk.region_size(win, search) - (win + 2) - 1e-5
+        zero = jnp.zeros_like(raw_r)
+        scal = jnp.stack([raw_r, raw_c, xy[:, 1], xy[:, 0], zero, zero, zero, zero], -1)
+        out = pallas_lk.level_call(blk, blk, scal, win=win, iters=0, interpret=True)
+        F = lk._sample_window(
+            blk, jnp.clip(raw_r, 0.0, lim), jnp.clip(raw_c, 0.0, lim), win + 2
+        )
+        want = lk._template_stats(F, win)[-1]
+        np.testing.assert_allclose(np.asarray(out[:, 2]), np.asarray(want), rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(np.asarray(out[:, 0]), np.asarray(xy[:, 1]))
+
+    def test_block_geometry_and_window_limit(self):
+        assert pallas_lk.tile(21) == 32 and pallas_lk.tile(32) == 32
+        assert pallas_lk.block_size(21, 10) == lk.region_size(21, 10) + 11 == 66
+        assert pallas_lk.supports(32) and not pallas_lk.supports(33)
+        _, xy, valid, pyrs = _setup(n_frames=2)
+        with pytest.raises(ValueError, match="win <= 32"):
+            pallas_lk.track_cached(
+                lk.capture_blocks(tuple(pyrs[0]), xy, win=33), pyrs[1], xy, valid,
+                win=33, interpret=True,
+            )
+
+
+def test_fused_pipeline_with_pallas_lk(monkeypatch):
+    """chunk_step with lk_impl='pallas' (kernel interpreted) must stay
     close to the tap-matrix path over a short fused run."""
-    import jax
-
     from pmv_tpu.core.state import FeatureTable, MapState
     from pmv_tpu.frontend.corners import grid_extract, select_top
     from pmv_tpu.frontend.image import build_pyramid
     from pmv_tpu.pipeline import fused
 
+    level_call = pallas_lk.level_call
+    monkeypatch.setattr(
+        pallas_lk, "level_call",
+        lambda *a, **k: level_call(*a, **{**k, "interpret": True}),
+    )
     H, W, N, M, C = 96, 160, 128, 512, 4
     seq = synthetic.make_sequence(n_frames=C + 1, shape=(H, W), density=40, seed=3)
     img0 = jnp.asarray(seq["images"][0])
@@ -115,8 +171,10 @@ def test_fused_pipeline_with_pallas_lk():
 
     outs = {}
     for impl in ("tap", "pallas"):
+        # lk_iters=7 keeps this program's jit cache entry apart from other
+        # tests' (the interpreted kernel is patched in at trace time).
         cfg = fused.StepConfig(
-            lk_levels=2, lk_window=15, lk_iters=6, tile_h=H, tile_w=W,
+            lk_levels=2, lk_window=15, lk_iters=7, tile_h=H, tile_w=W,
             n_per_tile=64, tracked_tol=48, e_hypos=64, pnp_hypos=64,
             bundle_size=3, ba_iters=3, traj_cap=16, lk_impl=impl,
         )
@@ -129,64 +187,3 @@ def test_fused_pipeline_with_pallas_lk():
 
     # trackers agree to ~1e-2 px -> trajectories agree to small tolerance
     np.testing.assert_allclose(outs["pallas"], outs["tap"], atol=0.05)
-
-
-class TestLargeRegion:
-    """Large regions (the reference-default win=32, Rg=84) run one
-    single-buffered pallas_call per lane group — pallas's grid pipelining
-    double-buffers block I/O past Mosaic's scoped-VMEM stack there."""
-
-    def test_win32_uses_per_group_and_matches_tap(self):
-        assert not pallas_lk._grid_pipelines(lk.region_size(32, 16))
-        assert pallas_lk.fits_vmem(lk.region_size(32, 16))
-        assert pallas_lk._grid_pipelines(lk.region_size(21, 10))
-        imgs, xy, valid, pyrs = _setup()
-        win = 32
-
-        ref_blocks = lk.capture_blocks(tuple(pyrs[0]), xy, win=win)
-        pal_blocks = pallas_lk.capture_blocks(tuple(pyrs[0]), xy, win=win)
-        ref_xy, ref_st, _ = lk.track_cached(ref_blocks, pyrs[1], xy, valid, win=win)
-        pal_xy, pal_st, _ = pallas_lk.track_cached(
-            pal_blocks, pyrs[1], xy, valid, win=win
-        )
-        both = np.asarray(ref_st) & np.asarray(pal_st)
-        assert both.sum() >= int(np.asarray(ref_st).sum()) * 0.95
-        np.testing.assert_allclose(
-            np.asarray(pal_xy)[both], np.asarray(ref_xy)[both], atol=5e-3
-        )
-
-    def test_per_group_path_matches_pipelined_in_interpret(self):
-        """The per-lane-group single-buffered branch (what win=32 actually
-        runs on chip) must produce bit-identical output to the pipelined
-        branch — force_groups exercises its slicing and re-assembly in
-        interpret mode, where it would otherwise be unreachable."""
-        # >128 features so the per-group path runs >1 lane group (the
-        # concat re-assembly is what needs coverage).
-        imgs, xy, valid, pyrs = _setup(n_frames=2, n_per_tile=160)
-        win = 32
-        blocks = pallas_lk.capture_blocks(tuple(pyrs[0]), xy, win=win)
-        pipe_xy, pipe_st, _ = pallas_lk.track_cached(
-            blocks, pyrs[1], xy, valid, win=win
-        )
-        grp_xy, grp_st, _ = pallas_lk.track_cached(
-            blocks, pyrs[1], xy, valid, win=win, force_groups=True
-        )
-        np.testing.assert_array_equal(np.asarray(grp_st), np.asarray(pipe_st))
-        np.testing.assert_array_equal(np.asarray(grp_xy), np.asarray(pipe_xy))
-
-    def test_shift_equals_reference_select(self):
-        rng = np.random.default_rng(0)
-        buf = jnp.asarray(rng.normal(size=(30, 30, 8)).astype(np.float32))
-        k0 = np.asarray(rng.integers(0, 9, (1, 1, 8)), np.int32)
-        for axis in (0, 1):
-            got = np.asarray(
-                pallas_lk._select_shift(jnp.asarray(buf), jnp.asarray(k0), 21, 9, axis=axis)
-            )
-            for lane in range(8):
-                k = int(k0[0, 0, lane])
-                want = (
-                    np.asarray(buf)[k : k + 21, :, lane]
-                    if axis == 0
-                    else np.asarray(buf)[:, k : k + 21, lane]
-                )
-                np.testing.assert_array_equal(got[..., lane], want)

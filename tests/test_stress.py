@@ -1,6 +1,6 @@
 """Hardened-scenario tests: sharp turns, occlusions, photometric noise.
 
-VERDICT round-1 item 4c: the smooth bench corridor never exercised the
+The smooth bench corridor never exercised the
 motion gate or the reseed path the way KITTI 07's corners and traffic do.
 These tests run the stress profile of pmv_tpu.io.synthetic and assert the
 resilience mechanisms actually fire and hold the trajectory together.
